@@ -1,106 +1,23 @@
-"""Pallas kernel tests (interpret mode on the CPU backend).
+"""Connected-components building blocks (ops/components.py).
 
-SURVEY §5.2 calls for Pallas validation with ``interpret=True``: the kernel
-must be bit-identical to its XLA twin at every tier shape the clustering
-pipeline actually instantiates (ops/stixel.py tier tables), including the
-odd-P shapes that exercise the block-padding path — the round-1 TPU bench
-failure was exactly a tile-alignment bug this test would have caught.
+The hook-first hybrid must give the same min-id component labels as the
+plain fixpoint loop, including above the packed-key limit where it packs
+live edges with a 3-operand sort.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lidar_processing_tpu.kernels.min_d2 import (_pairs_per_block,
-                                                 min_d2_planar,
-                                                 min_d2_planar_xla)
-from lidar_processing_tpu.ops import stixel as sx
-
-
-def _tier_widths():
-    """Every (Wu, Wv) the pipeline can instantiate (with the real slot
-    count alongside for the alignment test)."""
-    widths = []
-    for u_cap, v_cap, slots in sx._TIERS_INTRA + sx._TIERS_SNP:
-        wu = u_cap + 8        # u side: 8-point superrows
-        wv = v_cap + 32       # v side: one wide 32-superrow window
-        widths.append((slots, wu, wv))
-    return widths
-
-
-def _tier_shapes():
-    """(P, Wu, Wv) cases: every tier width at a small multi-block P, plus
-    odd P values that force the block-padding path. Interpret mode runs a
-    Python loop per grid step, so P is capped — alignment at the real slot
-    counts is covered by test_block_size_is_mosaic_aligned."""
-    shapes = [(min(slots, 384), wu, wv) for slots, wu, wv in _tier_widths()]
-    shapes += [(1, 64, 64), (7, 160, 160), (100, 288, 160), (9, 64, 96)]
-    return shapes
-
-
-class TestMinD2Kernel:
-    @pytest.mark.parametrize("p,wu,wv", _tier_shapes())
-    def test_interpret_matches_xla_bitexact(self, rng, p, wu, wv):
-        pts_u = rng.uniform(-30, 30, (p, wu, 3)).astype(np.float32)
-        pts_v = rng.uniform(-30, 30, (p, wv, 3)).astype(np.float32)
-        # mask a suffix of lanes the way the caller does (+BIG / -BIG fill)
-        for q in range(0, p, max(1, p // 7)):
-            pts_u[q, wu - (q % wu):] = 1.0e9
-            pts_v[q, wv - (q % wv):] = -1.0e9
-        args = tuple(pts_u[:, :, a] for a in range(3)) + tuple(
-            pts_v[:, :, a] for a in range(3))
-        got = np.asarray(min_d2_planar(*args, interpret=True))
-        want = np.asarray(min_d2_planar_xla(*args))
-        assert got.shape == (p,)
-        # identical f32 op order, but XLA may or may not contract the two
-        # mul+add points (dy², dz² accumulation) into FMAs depending on
-        # backend/config — allow exactly that: a few ULP, nothing more
-        ulp = np.abs(got.view(np.int32) - want.view(np.int32))
-        assert ulp.max() <= 4, (got[ulp > 4], want[ulp > 4])
-
-    @pytest.mark.parametrize("p,wu,wv", _tier_widths() + _tier_shapes())
-    def test_block_size_is_mosaic_aligned(self, p, wu, wv):
-        b = _pairs_per_block(wu, wv, p)
-        assert b % 8 == 0 and b >= 8
-        # VMEM bound: distance block + 6 coordinate planes comfortably < 16MB
-        assert b * wu * wv * 4 <= 4 * 1024 * 1024
+from lidar_processing.ops import components as cc
 
 
 class TestUnionFindKernel:
-    """The serial SMEM union-find kernel must agree with its XLA twin
-    (min node id per component) — validated in interpret mode on CPU."""
-
-    @pytest.mark.parametrize("seed,s_cap,n_edges", [
-        (0, 512, 900), (1, 1024, 300), (2, 2048, 4000), (3, 128, 0),
-    ])
-    def test_interpret_matches_xla(self, seed, s_cap, n_edges):
-        import jax.numpy as jnp
-        from jax.experimental.pallas import tpu as pltpu
-        from lidar_processing_tpu.kernels import union_find as uf
-
-        rng = np.random.default_rng(seed)
-        ec = max(n_edges + 64, 128)
-        eu = jnp.asarray(rng.integers(0, s_cap, ec), jnp.int32)
-        ev = jnp.asarray(
-            np.minimum(s_cap - 1,
-                       rng.integers(0, s_cap, ec)
-                       + rng.integers(0, 30, ec)), jnp.int32)
-        ne = jnp.int32(n_edges)
-        with pltpu.force_tpu_interpret_mode():
-            got = np.asarray(uf.cc_labels_pallas(eu, ev, ne, s_cap))
-        want = np.asarray(uf.cc_labels_xla(eu, ev, ne, s_cap))
-        np.testing.assert_array_equal(got, want)
-
     @pytest.mark.parametrize("seed,s_cap,n_edges", [
         (0, 512, 900), (2, 2048, 4000), (4, 8192, 20000), (3, 128, 0),
         (5, 1 << 16, 5000),   # above the packed-key limit: 3-operand path
     ])
     def test_hybrid_matches_xla(self, seed, s_cap, n_edges):
-        """The hook-then-serial hybrid (TPU production path) must produce
-        the same min-id component labels; serial stage swapped for the XLA
-        twin so the hook/dedup/compose logic is exercised on CPU."""
-        import jax.numpy as jnp
-        from lidar_processing_tpu.kernels import union_find as uf
-
         rng = np.random.default_rng(seed)
         ec = max(n_edges + 64, 128)
         eu = jnp.asarray(rng.integers(0, s_cap, ec), jnp.int32)
@@ -109,7 +26,7 @@ class TestUnionFindKernel:
                        rng.integers(0, s_cap, ec)
                        + rng.integers(0, 30, ec)), jnp.int32)
         ne = jnp.int32(n_edges)
-        got = np.asarray(uf.cc_labels_hybrid(
-            eu, ev, ne, s_cap, serial=uf.cc_labels_xla))
-        want = np.asarray(uf.cc_labels_xla(eu, ev, ne, s_cap))
-        np.testing.assert_array_equal(got, want)
+        got, _, got_ok = cc.cc_labels_hybrid(eu, ev, ne, s_cap)
+        want, _, want_ok = cc.cc_labels(eu, ev, ne, s_cap)
+        assert bool(got_ok) and bool(want_ok)
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from lidar_processing_tpu.ops import hull_native as hn
-from lidar_processing_tpu.oracle import reference as orc
-from lidar_processing_tpu.oracle.diff import polygon_chamfer
+from lidar_processing.ops import hull_native as hn
+from lidar_processing.oracle import reference as orc
+from lidar_processing.oracle.diff import polygon_chamfer
 
 needs_native = pytest.mark.skipif(
     not hn.native_available(), reason="native module not built")
@@ -113,7 +113,7 @@ class TestNativeGraph:
         assert np.array_equal(lbl, ref)
 
     def test_fec_matches_python_oracle(self, rng):
-        from lidar_processing_tpu.config import ClusteringConfig
+        from lidar_processing.config import ClusteringConfig
         cfg = ClusteringConfig()
         pts = rng.normal(0, 1.0, (3000, 3)).astype(np.float32)
         nat = hn.fec_cluster(pts, cfg.distance_squared, cfg.cluster_quality,

@@ -9,7 +9,7 @@ seeded instead of the reference's nondeterministic std::random_device.
 import numpy as np
 import pytest
 
-from lidar_processing_tpu.ops.neighbors import (NeighborIndex, k_nearest,
+from lidar_processing.ops.neighbors import (NeighborIndex, k_nearest,
                                                 radius_search)
 
 

@@ -1,7 +1,7 @@
 """Device-op tests vs the host oracles (CPU backend, small + real data).
 
 Mirrors the reference's brute-force-oracle test pattern
-(ref: test/test_kdtree.cpp:31-187) at the level the TPU design needs:
+(ref: test/test_kdtree.cpp:31-187) at the level the device design needs:
 segmentation labels vs the faithful GPF oracle, clustering vs exact
 radius-graph CC, hulls vs the monotone-chain oracle.
 """
@@ -12,10 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lidar_processing_tpu.config import DEFAULT_CONFIG
-from lidar_processing_tpu.oracle import diff as odiff
-from lidar_processing_tpu.oracle import reference as orc
-from lidar_processing_tpu.types import (CLUSTER_UNDEFINED, SEG_GROUND,
+from lidar_processing.config import DEFAULT_CONFIG
+from lidar_processing.oracle import diff as odiff
+from lidar_processing.oracle import reference as orc
+from lidar_processing.types import (CLUSTER_UNDEFINED, SEG_GROUND,
                                         SEG_OBSTACLE, SEG_UNKNOWN, pad_cloud)
 
 
@@ -37,7 +37,7 @@ def synth_scene(rng, n_ground=3000, boxes=8, pts_per_box=60):
 
 class TestSegmentationOp:
     def test_matches_oracle_synthetic(self, rng):
-        from lidar_processing_tpu.ops.segmentation import gpf_segment
+        from lidar_processing.ops.segmentation import gpf_segment
         xyz = synth_scene(rng)
         cfg = small_cfg()
         pc = pad_cloud(xyz, None, cfg.pipeline.max_points)
@@ -49,7 +49,7 @@ class TestSegmentationOp:
         assert iou > 0.995, iou
 
     def test_matches_oracle_frame0(self, frame0):
-        from lidar_processing_tpu.ops.segmentation import gpf_segment
+        from lidar_processing.ops.segmentation import gpf_segment
         cfg = DEFAULT_CONFIG
         pc = pad_cloud(frame0, None, cfg.pipeline.max_points)
         res = gpf_segment(jnp.asarray(pc.xyz), jnp.asarray(pc.mask),
@@ -62,7 +62,7 @@ class TestSegmentationOp:
             np.asarray(res.labels)[frame0.shape[0]:] == SEG_UNKNOWN)
 
     def test_empty_cloud(self):
-        from lidar_processing_tpu.ops.segmentation import gpf_segment
+        from lidar_processing.ops.segmentation import gpf_segment
         cfg = small_cfg(max_points=256)
         xyz = jnp.zeros((256, 3), jnp.float32)
         mask = jnp.zeros((256,), bool)
@@ -72,9 +72,9 @@ class TestSegmentationOp:
 
 def _cluster_fn(backend):
     if backend == "stixel":
-        from lidar_processing_tpu.ops.stixel import cluster
+        from lidar_processing.ops.stixel import cluster
     else:
-        from lidar_processing_tpu.ops.clustering import cluster
+        from lidar_processing.ops.clustering import cluster
     return cluster
 
 
@@ -168,7 +168,7 @@ class TestClusteringOp:
 
 class TestHullOps:
     def test_batched_convex_vs_oracle(self, rng):
-        from lidar_processing_tpu.ops.hull import convex_hulls_batched
+        from lidar_processing.ops.hull import convex_hulls_batched
         C, P = 16, 24
         pts = rng.normal(0, 1.0, (C, P, 2)).astype(np.float32)
         counts = rng.integers(3, P + 1, (C,)).astype(np.int32)
@@ -188,7 +188,7 @@ class TestHullOps:
                                        atol=1e-6)
 
     def test_label_runs_and_gather(self, rng):
-        from lidar_processing_tpu.ops.hull import gather_runs, label_runs
+        from lidar_processing.ops.hull import gather_runs, label_runs
         n = 512
         xyz = rng.normal(0, 1, (n, 3)).astype(np.float32)
         labels = rng.integers(-1, 5, (n,)).astype(np.int32)
@@ -209,7 +209,7 @@ class TestHullOps:
     def test_label_runs_overflow_counted(self, rng):
         """Cluster ids beyond the slot table are DROPPED and counted,
         never silently merged into the last slot."""
-        from lidar_processing_tpu.ops.hull import label_runs
+        from lidar_processing.ops.hull import label_runs
         labels = np.array([0, 1, 2, 3, 3, 9, 9, -1], np.int32)
         xyz = rng.normal(0, 1, (8, 3)).astype(np.float32)
         runs = label_runs(jnp.asarray(xyz), jnp.asarray(labels), 4)

@@ -7,11 +7,11 @@ configurations exercising the reference's documented quirks (SURVEY.md §3.3).
 import numpy as np
 import pytest
 
-from lidar_processing_tpu.config import (ClusteringConfig, DEFAULT_CONFIG,
+from lidar_processing.config import (ClusteringConfig, DEFAULT_CONFIG,
                                          SegmentationConfig)
-from lidar_processing_tpu.oracle import reference as ref
-from lidar_processing_tpu.oracle.diff import cluster_f1, ground_mask_iou
-from lidar_processing_tpu.types import (CLUSTER_INVALID, SEG_GROUND,
+from lidar_processing.oracle import reference as ref
+from lidar_processing.oracle.diff import cluster_f1, ground_mask_iou
+from lidar_processing.types import (CLUSTER_INVALID, SEG_GROUND,
                                         SEG_OBSTACLE, SEG_UNKNOWN)
 
 
@@ -208,3 +208,19 @@ class TestEndToEnd:
         assert len(res.outlines) == len(res.clusters)
         for hull in res.outlines:
             assert hull.ndim == 2 and hull.shape[1] == 2 and hull.shape[0] >= 1
+
+
+def test_radius_cc_native_matches_python_oracle(rng):
+    """The oracle's native component search gives the labels of its own
+    pure-Python union-find (ids, numbering and size filter)."""
+    from lidar_processing.config import ClusteringConfig
+    from lidar_processing.ops import hull_native
+    if not hull_native.native_available():
+        pytest.skip("native module unavailable (no C++ compiler)")
+    cfg = ClusteringConfig()
+    centers = rng.uniform(-10, 10, (30, 3))
+    pts = (rng.normal(0, 0.3, (30, 40, 3)) + centers[:, None, :]
+           ).reshape(-1, 3).astype(np.float32)
+    nat = ref.radius_cc_cluster(pts, cfg)
+    py = ref.radius_cc_cluster(pts, cfg, allow_native=False)
+    np.testing.assert_array_equal(nat, py)

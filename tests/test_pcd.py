@@ -1,25 +1,28 @@
-"""PCD reader/writer tests against the bundled dataset headers."""
+"""PCD reader/writer tests against seeded scene frames written to disk."""
 
 import numpy as np
 import pytest
 
-from lidar_processing_tpu.io.dataset import list_frames, load_frame, preload_padded
-from lidar_processing_tpu.io.pcd import read_pcd, read_pcd_xyzi, write_pcd_xyzi
+from lidar_processing.io.dataset import list_frames, load_frame, preload_padded
+from lidar_processing.io.pcd import read_pcd, read_pcd_xyzi, write_pcd_xyzi
+from lidar_processing.io.scene import frame_seed, scan
 
 
-def test_dataset_enumeration():
-    paths = list_frames()
-    assert len(paths) == 154
+def test_dataset_enumeration(scene_dir):
+    paths = list_frames(scene_dir)
+    assert len(paths) == 3
     assert paths == sorted(paths)
 
 
-def test_frame0_matches_header():
-    paths = list_frames()
+def test_frame0_matches_header(scene_dir):
+    paths = list_frames(scene_dir)
     fields = read_pcd(paths[0])
     assert set(fields) == {"x", "y", "z", "intensity"}
-    # data/0000000000.pcd header declares POINTS 123398
-    assert fields["x"].shape == (123398,)
+    xyz, inten = scan(frame_seed(0, 0))
+    # the header's POINTS count and the payload match the generated frame
+    assert fields["x"].shape == (xyz.shape[0],)
     assert fields["x"].dtype == np.float32
+    np.testing.assert_array_equal(fields["z"], xyz[:, 2])
 
 
 def test_roundtrip(tmp_path, rng):
@@ -32,10 +35,10 @@ def test_roundtrip(tmp_path, rng):
     np.testing.assert_array_equal(ri, inten)
 
 
-def test_preload_padded():
-    paths = list_frames()[:2]
+def test_preload_padded(scene_dir):
+    paths = list_frames(scene_dir)[:2]
     xyz, inten, counts = preload_padded(paths, capacity=131072)
     assert xyz.shape == (2, 131072, 3)
-    assert counts[0] == 123398
+    assert counts[0] == scan(frame_seed(0, 0))[0].shape[0]
     # padding is zero beyond count
     assert np.all(xyz[0, counts[0]:] == 0)

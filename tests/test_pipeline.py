@@ -4,16 +4,16 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from lidar_processing_tpu.config import DEFAULT_CONFIG
-from lidar_processing_tpu.oracle import diff as odiff
-from lidar_processing_tpu.oracle import reference as orc
-from lidar_processing_tpu.types import pad_cloud
+from lidar_processing.config import DEFAULT_CONFIG
+from lidar_processing.oracle import diff as odiff
+from lidar_processing.oracle import reference as orc
+from lidar_processing.types import pad_cloud
 
 
 @pytest.fixture(scope="module")
 def frame0_outputs(request):
     frame0 = request.getfixturevalue("frame0")
-    from lidar_processing_tpu.runtime.pipeline import (device_frame_step,
+    from lidar_processing.runtime.pipeline import (device_frame_step,
                                                        host_outputs)
     cfg = DEFAULT_CONFIG
     pc = pad_cloud(frame0, None, cfg.pipeline.max_points)
@@ -58,7 +58,7 @@ class TestFramePipeline:
         """The streaming single-buffer payload path reproduces the exact
         readout: labels/counters bit-identical, outlines within the 2 mm
         quantization grid (runtime/pipeline.py payload section)."""
-        from lidar_processing_tpu.runtime.pipeline import (
+        from lidar_processing.runtime.pipeline import (
             device_frame_step_packed, host_outputs_packed)
         cfg = DEFAULT_CONFIG
         pc = pad_cloud(frame0, None, cfg.pipeline.max_points)
@@ -73,7 +73,7 @@ class TestFramePipeline:
         assert packed.overflow == exact.overflow == 0
         assert len(packed.outlines) == len(exact.outlines)
         assert packed.outline_cluster_ids == exact.outline_cluster_ids
-        from lidar_processing_tpu.oracle.diff import polygon_chamfer
+        from lidar_processing.oracle.diff import polygon_chamfer
         worst = 0.0
         for a, b in zip(exact.outlines, packed.outlines):
             # chi-shape vertex COUNTS are threshold-sensitive (a 2 mm
@@ -95,7 +95,7 @@ class TestFramePipeline:
         convex path with Chan above chan_threshold
         (ref: src/polygon_simplification.cpp:32-63)."""
         import dataclasses
-        from lidar_processing_tpu.runtime.pipeline import (device_frame_step,
+        from lidar_processing.runtime.pipeline import (device_frame_step,
                                                            host_outputs)
         cfg = DEFAULT_CONFIG.replace(
             polygonization=dataclasses.replace(

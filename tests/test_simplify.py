@@ -11,8 +11,8 @@ import dataclasses
 import numpy as np
 import pytest
 
-from lidar_processing_tpu.config import DEFAULT_CONFIG
-from lidar_processing_tpu.ops.simplify import simplify_ring
+from lidar_processing.config import DEFAULT_CONFIG
+from lidar_processing.ops.simplify import simplify_ring
 
 
 def _ring_area(v: np.ndarray) -> float:
@@ -65,8 +65,8 @@ class TestPipelineCap:
         """End-to-end: every emitted outline obeys max_points_in_polygon."""
         import jax.numpy as jnp
 
-        from lidar_processing_tpu.runtime.pipeline import run_frame
-        from lidar_processing_tpu.types import pad_cloud
+        from lidar_processing.runtime.pipeline import run_frame
+        from lidar_processing.types import pad_cloud
 
         rng = np.random.default_rng(5)
         # one big dense blob => a large concave outline with many vertices

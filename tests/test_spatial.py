@@ -15,11 +15,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lidar_processing_tpu.config import DEFAULT_CONFIG, SpatialConfig
-from lidar_processing_tpu.ops import stixel as sx
-from lidar_processing_tpu.ops.segmentation import gpf_segment
-from lidar_processing_tpu.parallel.spatial import cluster_spatial
-from lidar_processing_tpu.types import SEG_OBSTACLE, pad_cloud
+from lidar_processing.config import DEFAULT_CONFIG, SpatialConfig
+from lidar_processing.ops import stixel as sx
+from lidar_processing.ops.segmentation import gpf_segment
+from lidar_processing.parallel.spatial import cluster_spatial
+from lidar_processing.types import SEG_OBSTACLE, pad_cloud
 
 
 def mesh8():
@@ -106,7 +106,7 @@ class TestClusterSpatial:
         each frame's x-bands over 'space'. Per-frame labels bit-identical
         to the single-device path."""
         from jax.sharding import Mesh
-        from lidar_processing_tpu.parallel.spatial import cluster_spatial_2d
+        from lidar_processing.parallel.spatial import cluster_spatial_2d
         cfg = DEFAULT_CONFIG
         mesh = Mesh(np.asarray(jax.devices()[:8]).reshape(2, 4),
                     ("data", "space"))
@@ -143,9 +143,9 @@ class TestClusterSpatial:
         both under the space axis): seg within the documented f32-psum
         tolerance of the single-device step; clustering bit-identical on
         the sharded seg's own obstacle mask; hull stage consistent."""
-        from lidar_processing_tpu.parallel.frame_spatial import (
+        from lidar_processing.parallel.frame_spatial import (
             device_frame_step_spatial, gpf_spatial)
-        from lidar_processing_tpu.runtime.pipeline import device_frame_step
+        from lidar_processing.runtime.pipeline import device_frame_step
         import math
         cfg = DEFAULT_CONFIG
         npad = 4096
@@ -183,7 +183,7 @@ class TestClusterSpatial:
         # full spatial step: clustering bit-identical to the single-device
         # clustering of the SAME (sharded) obstacle mask
         fr = device_frame_step_spatial(mesh, pc.xyz, pc.mask, tcfg)
-        from lidar_processing_tpu.types import SEG_OBSTACLE as OB
+        from lidar_processing.types import SEG_OBSTACLE as OB
         obst = pc.mask & (np.asarray(fr.seg.labels) == OB)
         ref_cl = sx.cluster(pc.xyz, jnp.asarray(obst), tcfg.clustering,
                             pcfg)

@@ -13,8 +13,8 @@ import os
 import numpy as np
 import pytest
 
-from lidar_processing_tpu.config import DEFAULT_CONFIG
-from lidar_processing_tpu.io.pcd import write_pcd_xyzi
+from lidar_processing.config import DEFAULT_CONFIG
+from lidar_processing.io.pcd import write_pcd_xyzi
 
 
 @pytest.fixture(scope="module")
@@ -43,7 +43,7 @@ def tiny_cfg():
 
 class TestReplayStream:
     def test_cyclic_wraparound_and_order(self, tiny_dataset):
-        from lidar_processing_tpu.runtime.stream import ReplayStream
+        from lidar_processing.runtime.stream import ReplayStream
         d, sizes = tiny_dataset
         stream = ReplayStream(tiny_cfg(), data_dir=d)
         assert stream.num_frames == 3
@@ -58,7 +58,7 @@ class TestReplayStream:
             assert m.overflow == 0
 
     def test_outlines_and_stage_timing(self, tiny_dataset):
-        from lidar_processing_tpu.runtime.stream import ReplayStream
+        from lidar_processing.runtime.stream import ReplayStream
         d, _ = tiny_dataset
         stream = ReplayStream(tiny_cfg(), data_dir=d)
         results = list(stream.run(3, stage_timing=True))
@@ -72,7 +72,7 @@ class TestReplayStream:
             assert len(out.outline_cluster_ids) == len(out.outlines)
 
     def test_realtime_pacing_flags(self, tiny_dataset):
-        from lidar_processing_tpu.runtime.stream import ReplayStream
+        from lidar_processing.runtime.stream import ReplayStream
         d, _ = tiny_dataset
         cfg = tiny_cfg()
         # absurd rate => every frame misses its deadline
@@ -87,7 +87,7 @@ class TestReplayStream:
         lag (ref: src/processor.cpp:69-73 QoS depth-2 keep-last)."""
         import time
 
-        from lidar_processing_tpu.runtime.stream import ReplayStream
+        from lidar_processing.runtime.stream import ReplayStream
         d, _ = tiny_dataset
         cfg = tiny_cfg()
         # 200 Hz publication, consumer takes ~25 ms/frame => ~5 pubs per
@@ -111,7 +111,7 @@ class TestReplayStream:
         # the per-frame dispatch never waited behind a growing backlog.
 
     def test_non_realtime_processes_every_frame(self, tiny_dataset):
-        from lidar_processing_tpu.runtime.stream import ReplayStream
+        from lidar_processing.runtime.stream import ReplayStream
         d, _ = tiny_dataset
         stream = ReplayStream(tiny_cfg(), data_dir=d)
         results = list(stream.run(6, with_outlines=False))
@@ -121,8 +121,8 @@ class TestReplayStream:
 
 class TestExport:
     def test_export_frame_artifacts(self, tiny_dataset, tmp_path):
-        from lidar_processing_tpu.io.export import export_frame
-        from lidar_processing_tpu.runtime.stream import ReplayStream
+        from lidar_processing.io.export import export_frame
+        from lidar_processing.runtime.stream import ReplayStream
         d, sizes = tiny_dataset
         stream = ReplayStream(tiny_cfg(), data_dir=d)
         (out, m), = list(stream.run(1))
@@ -147,9 +147,9 @@ class TestExport:
     def test_intensity_passthrough_roundtrip(self, tmp_path):
         """Intensity rides the full path: PCD -> preload -> FrameOutputs ->
         PLY export -> read-back (ref schema src/dataloader.cpp:106-110)."""
-        from lidar_processing_tpu.io.export import (export_frame,
+        from lidar_processing.io.export import (export_frame,
                                                     read_ply_xyzrgb)
-        from lidar_processing_tpu.runtime.stream import ReplayStream
+        from lidar_processing.runtime.stream import ReplayStream
         d = tmp_path / "frames"
         d.mkdir()
         rng = np.random.default_rng(3)
@@ -179,7 +179,7 @@ class TestExport:
             i_obst, inten[out.seg_labels == 2])
 
     def test_cluster_colors_deterministic(self):
-        from lidar_processing_tpu.io.export import cluster_colors
+        from lidar_processing.io.export import cluster_colors
         lab = np.arange(100, dtype=np.int32)
         c1, c2 = cluster_colors(lab), cluster_colors(lab)
         np.testing.assert_array_equal(c1, c2)
@@ -190,7 +190,7 @@ class TestExport:
 
 class TestCli:
     def test_run_command(self, tiny_dataset, tmp_path, capsys):
-        from lidar_processing_tpu.cli import main
+        from lidar_processing.cli import main
         d, _ = tiny_dataset
         rc = main(["run", "--frames", "4", "--data-dir", d,
                    "--export-dir", str(tmp_path), "--export-frames", "1"])

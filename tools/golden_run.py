@@ -1,6 +1,7 @@
 """154-frame golden parity run: device pipeline vs host oracles.
 
-For EVERY bundled KITTI frame (SURVEY §4's golden-output requirement):
+For EVERY frame of the recorded sequence in data/ (SURVEY §4's
+golden-output requirement):
 
   1. ground-mask IoU (device GPF vs oracle GPF)            >= 0.99
   2. clustering EXACTNESS: device labels vs the native radius-CC oracle
@@ -24,7 +25,7 @@ For EVERY bundled KITTI frame (SURVEY §4's golden-output requirement):
      agrees with itself, in expectation).
 
 Writes a summary to GOLDEN.json at the repo root and exits nonzero on any
-violation. Runtime: ~20 min (TPU device path + native C++ oracle).
+violation.
 
 Usage: python tools/golden_run.py [--frames N] [--out PATH]
 """
@@ -42,13 +43,13 @@ import numpy as np
 
 def oracle_cc(xyz: np.ndarray, ccfg) -> np.ndarray:
     """radius_cc_cluster semantics via the fast native path."""
-    from lidar_processing_tpu.ops import hull_native
-    from lidar_processing_tpu.types import CLUSTER_INVALID
+    from lidar_processing.ops import hull_native
+    from lidar_processing.types import CLUSTER_INVALID
     n = xyz.shape[0]
     if n == 0:
         return np.full(0, CLUSTER_INVALID, np.int32)
     if not hull_native.native_available():
-        from lidar_processing_tpu.oracle.reference import radius_cc_cluster
+        from lidar_processing.oracle.reference import radius_cc_cluster
         return radius_cc_cluster(xyz, ccfg)
     roots = hull_native.radius_cc(
         np.ascontiguousarray(xyz, np.float32),
@@ -71,7 +72,7 @@ def fec_with_order(xyz: np.ndarray, ccfg, perm: np.ndarray) -> np.ndarray:
     (cluster ids stay seed-order relative to the permuted run; cluster_f1
     is id-bijection invariant).
     """
-    from lidar_processing_tpu.oracle.reference import fec_cluster
+    from lidar_processing.oracle.reference import fec_cluster
     lp = fec_cluster(np.ascontiguousarray(xyz[perm]), ccfg)
     out = np.empty_like(lp)
     out[perm] = lp
@@ -87,13 +88,13 @@ def main() -> int:
     import jax
     import jax.numpy as jnp
 
-    from lidar_processing_tpu.config import DEFAULT_CONFIG
-    from lidar_processing_tpu.io.dataset import list_frames, load_frame
-    from lidar_processing_tpu.oracle import diff as odiff
-    from lidar_processing_tpu.oracle import reference as orc
-    from lidar_processing_tpu.runtime.pipeline import (device_frame_step,
+    from lidar_processing.config import DEFAULT_CONFIG
+    from lidar_processing.io.dataset import list_frames, load_frame
+    from lidar_processing.oracle import diff as odiff
+    from lidar_processing.oracle import reference as orc
+    from lidar_processing.runtime.pipeline import (device_frame_step,
                                                        host_outputs)
-    from lidar_processing_tpu.types import SEG_OBSTACLE, pad_cloud
+    from lidar_processing.types import SEG_OBSTACLE, pad_cloud
 
     cfg = DEFAULT_CONFIG
     cap = cfg.pipeline.max_points

@@ -1,12 +1,17 @@
-"""Measure stixel-clustering cap occupancies over the whole dataset.
+"""Measure stixel-clustering cap occupancies over a set of frames.
 
-Prints the max over all 154 frames of every capacity-bound quantity, so
-PipelineConfig caps and tier tables can be right-sized: static slot counts
-are linear cost on TPU whether occupied or not.
+Prints the max over the frames of every capacity-bound quantity, so
+PipelineConfig caps and tier tables can be sized from the deployment's
+data: static slots cost work whether occupied or not, and every violation
+raises the overflow counter.
+
+    python tools/measure_caps.py --data-dir DIR     # recorded .pcd frames
+    python tools/measure_caps.py --seed 0 --frames 16   # seeded scenes
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 
 import jax
@@ -15,11 +20,18 @@ import numpy as np
 
 
 def main():
-    from lidar_processing_tpu.config import DEFAULT_CONFIG
-    from lidar_processing_tpu.io.dataset import list_frames, load_frame
-    from lidar_processing_tpu.ops import stixel as sx
-    from lidar_processing_tpu.ops.segmentation import gpf_segment
-    from lidar_processing_tpu.types import SEG_OBSTACLE, pad_cloud
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--data-dir", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--frames", type=int, default=16)
+    args = ap.parse_args()
+
+    from lidar_processing.config import DEFAULT_CONFIG
+    from lidar_processing.io.scene import frame_seed, scan
+    from lidar_processing.io.dataset import list_frames, load_frame
+    from lidar_processing.ops import stixel as sx
+    from lidar_processing.ops.segmentation import gpf_segment
+    from lidar_processing.types import SEG_OBSTACLE, pad_cloud
 
     cfg = DEFAULT_CONFIG
     cap = cfg.pipeline.max_points
@@ -56,18 +68,22 @@ def main():
             num=res.num_clusters,
         )
 
+    if args.data_dir:
+        frames = [lambda p=p: load_frame(p)[0]
+                  for p in list_frames(args.data_dir)]
+    else:
+        frames = [lambda i=i: scan(frame_seed(args.seed, i))[0]
+                  for i in range(args.frames)]
     maxima: dict = {}
-    frames = list_frames()
-    for i, p in enumerate(frames):
-        xyz, _ = load_frame(p)
+    for i, load in enumerate(frames):
+        xyz = load()
         pc = pad_cloud(xyz, None, cap)
         out = {k: np.asarray(v) for k, v in
                stats(jnp.asarray(pc.xyz), jnp.asarray(pc.mask)).items()}
         for k, v in out.items():
             maxima[k] = np.maximum(maxima.get(k, v), v)
-        if i % 50 == 0:
-            print(f"frame {i}: " + " ".join(
-                f"{k}={v}" for k, v in out.items() if v.ndim == 0))
+        print(f"frame {i}: " + " ".join(
+            f"{k}={v}" for k, v in out.items() if v.ndim == 0))
     print("\n=== maxima over", len(frames), "frames ===")
     for k, v in maxima.items():
         print(f"{k:12s} {v}")

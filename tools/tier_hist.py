@@ -23,11 +23,11 @@ def main():
 
     import jax.numpy as jnp
 
-    from lidar_processing_tpu.config import DEFAULT_CONFIG
-    from lidar_processing_tpu.io.dataset import list_frames, load_frame
-    from lidar_processing_tpu.ops import stixel as sx
-    from lidar_processing_tpu.ops.segmentation import gpf_segment
-    from lidar_processing_tpu.types import SEG_OBSTACLE, pad_cloud
+    from lidar_processing.config import DEFAULT_CONFIG
+    from lidar_processing.io.dataset import list_frames, load_frame
+    from lidar_processing.ops import stixel as sx
+    from lidar_processing.ops.segmentation import gpf_segment
+    from lidar_processing.types import SEG_OBSTACLE, pad_cloud
 
     cfg = DEFAULT_CONFIG
     cap = cfg.pipeline.max_points
